@@ -3,12 +3,11 @@
 // Role in the framework (the C++ runtime component, parallel to the
 // reference library's native C++ core):
 //   * high-precision ORACLE for property-based conformance tests — solves
-//     arbitrary QPs to ~1e-14 so the JAX/TPU solver's accuracy can be
+//     arbitrary QPs to ~1e-14 so the JAX solver's accuracy can be
 //     measured against ground truth on random instances, not just the
-//     fixtures;
-//   * threaded CPU fallback engine for batch solves without a TPU.
+//     fixtures (tests and bench.py only; never a solver fallback).
 //
-// Algorithm: the same TPU-native design as sqp_solver_tpu.qp (Schur-
+// Algorithm: the same design as sqp_solver_tpu.qp (Schur-
 // complement reduction of the KKT system + dense Cholesky, per-constraint
 // rho with loose/equality classification, over-relaxation, residual
 // termination, adaptive rho with re-factorization) — written from scratch

@@ -7,9 +7,9 @@ the linear cost q that makes the solver's output match target solutions,
 by plain gradient descent on ||x*(q) - x_target||^2 — the gradient flows
 through the converged KKT system (qp.diff.qp_solve_diff, the OptNet
 scheme).  The reference C++ library has no autodiff of any kind; here
-the backward pass reuses the TPU polish machinery.
+the backward pass reuses the polish machinery.
 
-Run: python examples/diff_qp_learning.py     (CPU or TPU)
+Run: python examples/diff_qp_learning.py     (CPU or GPU)
 """
 
 import os
@@ -19,7 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from _common import example_setup
 
-_quick = example_setup()  # platform re-assert + smoke-mode flag
+_quick = example_setup()  # smoke-mode flag
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

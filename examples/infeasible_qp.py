@@ -3,8 +3,8 @@ C++ library lacks entirely: on an infeasible problem it can only burn
 ``max_iter`` and report MAX_ITER_EXCEEDED (``src/qp.cpp:147-149``).
 
 Here the ADMM iterate deltas are checked against the primal/dual
-certificate conditions at termination-check cadence (on every tier,
-including inside the whole-solve TPU kernel), so an infeasible problem is
+certificate conditions at termination-check cadence (on every tier),
+so an infeasible problem is
 diagnosed within a few checks — and a batch can mix feasible and
 infeasible instances without cross-contamination.
 
@@ -25,7 +25,7 @@ from sqp_solver_tpu.parallel.batch import qp_solve_batch
 
 
 def main():
-    quick = example_setup()  # platform re-assert + smoke-mode flag
+    quick = example_setup()  # smoke-mode flag
     # detection fires within a few termination checks either way; quick
     # mode just caps the budget an undetected case could burn
     settings = QPSettings(eps_abs=1e-4, eps_rel=1e-4,

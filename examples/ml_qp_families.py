@@ -5,7 +5,7 @@ dense QPs in f32 with Ruiz equilibration + active-set polish — the
 combination that reaches ~1e-6 accuracy at f32 on badly-scaled data
 (huber stalls at ~1e-2 without it).
 
-Run: python examples/ml_qp_families.py   (CPU or TPU)
+Run: python examples/ml_qp_families.py   (CPU or GPU)
 """
 
 import pathlib
@@ -30,7 +30,7 @@ from sqp_solver_tpu.qp import QPSettings, QPStatus
 
 
 def main():
-    quick = example_setup()  # platform re-assert + smoke-mode flag
+    quick = example_setup()  # smoke-mode flag
     settings = QPSettings(
         eps_abs=1e-4,
         eps_rel=1e-4,

@@ -23,7 +23,7 @@ from _common import example_setup
 
 
 def main():
-    quick = example_setup()  # platform re-assert + smoke-mode flag
+    quick = example_setup()  # smoke-mode flag
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3 if quick else 10)
     ap.add_argument("--batch", type=int, default=64 if quick else 512)

@@ -22,7 +22,7 @@ from _common import example_setup
 
 
 def main():
-    quick = example_setup()  # platform re-assert + smoke-mode flag
+    quick = example_setup()  # smoke-mode flag
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32 if quick else 256)
     ap.add_argument("--assets", type=int, default=16 if quick else 32)

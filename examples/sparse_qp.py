@@ -2,12 +2,10 @@
 """Arbitrary unstructured sparsity: BlockSparse operands + matrix-free CG.
 
 The capability the reference reserves for ``Eigen::SimplicialLDLT``
-(``include/solvers/qp.hpp:126-129``), TPU-shaped: the matrix is a static
-grid of MXU-sized tiles, only nonzero tiles are stored, and the solver
-runs fully matrix-free (Jacobi-preconditioned CG on the Schur operator —
-no Gram, no factorization, no fill-in).  The strip-formulation matvec
-makes this FASTER than the best dense backend above n ~ 4096 (measured
-on TPU: 2.2-2.9x at n=8192, 1.5-3% block density).
+(``include/solvers/qp.hpp:126-129``): the matrix is a static grid of
+dense tiles, only nonzero tiles are stored, and the solver runs fully
+matrix-free (Jacobi-preconditioned CG on the Schur operator — no Gram,
+no factorization, no fill-in).
 
 Run: python examples/sparse_qp.py [--n 2048] [--density 0.05]
 """

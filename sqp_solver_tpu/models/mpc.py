@@ -111,7 +111,7 @@ def mpc_qp_stagewise_batch(
     box, state box) touches at most two adjacent stage blocks, so
     M = P + sigma I + A' rho A is block-tridiagonal with block size 3 —
     solve with ``QPSettings(linear_solver="schur_block_tridiag",
-    block_size=3)``.  This is the TPU-native counterpart of the
+    block_size=3)``.  This is the batched counterpart of the
     reference's sparse QP path (``src/qp.cpp:161-270`` under
     ``QP_SOLVER_USE_SPARSE``): structure exploited in the factorization,
     dense-masked everywhere else.
@@ -348,9 +348,10 @@ def mpc_nlp_stagewise_batch(
     Objective: 0.5 sum_k q ||p_k - goal||^2 + r u_k^2 + w th_k^2 — every
     term touches one stage, so the TRUE Lagrangian Hessian is
     block-diagonal in the stage blocks and every Schur matrix
-    B + sigma I + J' rho J is block-tridiagonal at block size 4: solve
-    with ``SQPSettings(qp_impl="kernel_btd", qp=QPSettings(block_size=4,
-    ...))``.  This is the nonlinear counterpart of
+    B + sigma I + J' rho J is block-tridiagonal at block size 4 (the
+    structure a block-tridiagonal inner solve on the fused SQP tier would
+    exploit; the dense fused tier solves it today).  This is the nonlinear
+    counterpart of
     :func:`mpc_qp_stagewise_batch` (the reference exercises only dense
     NLPs — ``tests/sqp_test.cpp`` — so this family is capability beyond
     parity, targeted at the sparse ambition of

@@ -3,16 +3,16 @@
 The reference's sparse ambition is ``Eigen::SimplicialLDLT`` over an
 arbitrary sparsity pattern (``include/solvers/qp.hpp:126-129``; the
 disabled sparse test ``tests/qp_solver_sparse_test.cpp:51-98``).  A
-scalar-sparse factorization is the wrong primitive on TPU — gather-heavy,
-MXU-hostile, and the fill-in is data-dependent.  The TPU-native
-representation of "arbitrary sparsity" is **block sparsity at MXU
+scalar-sparse factorization is the wrong primitive for a batched
+accelerator — gather-heavy, and the fill-in is data-dependent.  Here
+"arbitrary sparsity" is represented as **block sparsity at matmul-tile
 granularity**: the matrix is a static grid of ``bs x bs`` tiles, only the
 nonzero tiles are stored, and every operation is a batched dense kernel
 over the stored tiles:
 
     y = M x      ->  gather x tiles by block-column, one batched
                      (nb, bs, bs) @ (nb, bs) matmul, segment-sum by
-                     block-row (all three are native XLA/MXU ops)
+                     block-row (all three are native XLA ops)
 
 The PATTERN is static (hashable aux data — jit recompiles per pattern,
 exactly like shapes); the VALUES are traced.  This is how the structured

@@ -6,15 +6,16 @@ The reference factorizes the quasi-definite KKT matrix
          [A,            -diag(1/rho)]]
 
 with Eigen LDL^T and back-solves it once per ADMM iteration (C5/C6,
-``src/qp.cpp:160-259``).  On TPU we *redesign* rather than translate:
+``src/qp.cpp:160-259``).  For batched accelerator solves we *redesign*
+rather than translate:
 
 * ``schur_cholesky`` (default) — eliminate the dual block analytically.
   From the second KKT row, ``nu = rho .* (A x̃ − rhs2)``, so the system
   reduces to the SPD *Schur form* ``(P + sigma*I + A' diag(rho) A) x̃ =
   rhs1 + A' (rho .* rhs2)``, and the auxiliary iterate is simply
   ``z̃ = A x̃``.  SPD means a pivot-free Cholesky: batched cleanly by vmap,
-  assembled by matmuls on the MXU, and half the system size.  This is the
-  TPU-native equivalent of the LDL^T path, with identical exact-arithmetic
+  assembled by batched matmuls, and half the system size.  This is the
+  batched equivalent of the LDL^T path, with identical exact-arithmetic
   iterates.
 
 * ``kkt_ldlt`` — factor the full quasi-definite KKT matrix with our own
@@ -28,7 +29,7 @@ with Eigen LDL^T and back-solves it once per ADMM iteration (C5/C6,
   ``tests/qp_solver_sparse_test.cpp:51-66``).
 
 All solvers support ``refine_steps`` rounds of iterative refinement, which
-recovers near-f64 solve accuracy from f32 factorizations on the MXU.
+recovers near-f64 solve accuracy from f32 factorizations.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ __all__ = ["get_linear_solver", "ldlt_factor", "ldlt_solve"]
 def _mv(M, v):
     """Batch-polymorphic matvec at HIGHEST precision: (..., i, j) @ (..., j).
     Accepts a BlockSparse M (ops/block_sparse.py) for the matrix-free
-    backends — arbitrary unstructured sparsity at MXU block granularity."""
+    backends — arbitrary unstructured sparsity at block granularity."""
     if hasattr(M, "mv"):  # BlockSparse
         return M.mv(v)
     return jnp.einsum("...ij,...j->...i", M, v, precision=lax.Precision.HIGHEST)
@@ -98,25 +99,25 @@ class LinearSolver(NamedTuple):
 def _schur_matrix(P, A, sigma, rho_vec):
     n = P.shape[-1]
     eye = jnp.eye(n, dtype=P.dtype)
-    # A' diag(rho) A via one scaled matmul — MXU-friendly.
+    # A' diag(rho) A via one scaled batched matmul
     return P + sigma * eye + hmat(A.mT, rho_vec[..., :, None] * A)
 
 
 def _schur_factor(P, A, sigma, rho_vec):
     """Cholesky + *explicit inverse* of the Schur matrix.
 
-    The per-ADMM-iteration solve is the hot op.  XLA's batched
-    triangular_solve on TPU is a sequential substitution (miserable for
-    thousands of small systems), so we pay one extra n^3 at factorization
-    time — L^-1 by triangular solve against I, then M^-1 = L^-T L^-1 — and
-    every subsequent solve is a single MXU matvec.  Factorizations happen
+    The per-ADMM-iteration solve is the hot op.  A batched
+    triangular_solve is a sequential substitution (slow for thousands of
+    small systems), so we pay one extra n^3 at factorization time — L^-1
+    by triangular solve against I, then M^-1 = L^-T L^-1 — and every
+    subsequent solve is a single batched matvec.  Factorizations happen
     only on rho epochs; solves happen every iteration.  Accuracy loss vs a
     backsolve is O(kappa * eps) either way; ``refine_steps`` (with the
     exact M kept alongside) recovers backsolve-grade residuals in f32.
     """
     # Cholesky / triangular_solve are XLA HLOs whose *internal* blocked
-    # matmuls follow the ambient precision config — pin it here or f32 on
-    # TPU silently degrades to bf16 passes and ADMM stops converging.
+    # matmuls follow the ambient precision config — pin it here or f32
+    # silently degrades to TF32 passes and ADMM stops converging.
     with jax.default_matmul_precision("highest"):
         M = _schur_matrix(P, A, sigma, rho_vec)
         L = jnp.linalg.cholesky(M)
@@ -274,8 +275,8 @@ def _cg_factor(P, A, sigma, rho_vec):
     # adaptive rho), typically several-fold fewer CG iterations.
     # Polymorphic over dense / BlockSparse P, A (ops/block_sparse.py):
     # with BlockSparse this is the ARBITRARY-SPARSITY backend — fully
-    # matrix-free, no Gram, no factorization, no fill-in (the TPU answer
-    # to the reference's Eigen::SimplicialLDLT ambition,
+    # matrix-free, no Gram, no factorization, no fill-in (the batched
+    # answer to the reference's Eigen::SimplicialLDLT ambition,
     # include/solvers/qp.hpp:126-129).
     diag_M = _diag(P) + sigma + _sq_col_sums(A, rho_vec)
     factor = {"jacobi": jnp.maximum(diag_M, jnp.finfo(diag_M.dtype).tiny)}
@@ -388,13 +389,13 @@ def _schur_tri_is_failure(factor):
 
 
 # ---------------------------------------------------------------------------
-# Blocked MXU Cholesky with explicit inverse (large-n single-problem path)
+# Blocked Cholesky with explicit inverse (large-n single-problem path)
 # ---------------------------------------------------------------------------
 
 
 def _blocked_cholesky(M, bs=512):
     """Right-looking blocked Cholesky: python-unrolled 128x-aligned blocks
-    so the panel solve and the rank-bs trailing update are plain MXU GEMMs
+    so the panel solve and the rank-bs trailing update are plain GEMMs
     (XLA's own `cholesky` HLO at n ~ 4096 spends its time in sequential
     triangular solves; this formulation keeps >95% of the flops in
     matmuls).  Returns lower L."""
@@ -416,13 +417,13 @@ def _blocked_cholesky(M, bs=512):
             )
         cols.append(colblk)
         panel = colblk[k + b :, :]
-        T = T[b:, b:] - hmat(panel, panel.T)  # MXU rank-bs update
+        T = T[b:, b:] - hmat(panel, panel.T)  # rank-bs GEMM update
     return cols[0] if len(cols) == 1 else jnp.concatenate(cols, axis=1)
 
 
 def _blocked_tri_inv(L, bs=512):
     """Li = L^-1 for lower-triangular L via block forward substitution —
-    the off-diagonal work is MXU GEMMs (XLA's triangular_solve against a
+    the off-diagonal work is GEMMs (XLA's triangular_solve against a
     full identity is a sequential-substitution compile hog at large n)."""
     n = L.shape[-1]
     dtype = L.dtype
@@ -461,10 +462,10 @@ def _blocked_tri_inv(L, bs=512):
 
 
 def _schur_blocked_factor(P, A, sigma, rho_vec):
-    """Large-n factor: blocked MXU Cholesky + blocked triangular inverse +
+    """Large-n factor: blocked Cholesky + blocked triangular inverse +
     one GEMM for the explicit M^-1 — every per-ADMM-iteration solve is
     then a single matvec.  The SURVEY's "north-star native kernel" (C6,
-    reference include/solvers/qp.hpp:126-129) realized as MXU GEMMs."""
+    reference include/solvers/qp.hpp:126-129) realized as GEMMs."""
     with jax.default_matmul_precision("highest"):
         M = _schur_matrix(P, A, sigma, rho_vec)
         n = M.shape[-1]
@@ -487,7 +488,7 @@ def _schur_blocked_solve(factor, P, A, sigma, rho_vec, rhs1, rhs2, refine_steps)
 
 
 # ---------------------------------------------------------------------------
-# Block-tridiagonal Schur Cholesky (structured KKT — the TPU-native
+# Block-tridiagonal Schur Cholesky (structured KKT — the batched
 # equivalent of the reference's sparse path, src/qp.cpp:161-270 under
 # QP_SOLVER_USE_SPARSE + include/unsupported/qp_solver.hpp)
 # ---------------------------------------------------------------------------
@@ -511,7 +512,7 @@ def _btd_factor_factory(b: int):
         """Block-Thomas Cholesky of the Schur matrix: M = L L' with block-
         bidiagonal L (diag blocks L_k, sub blocks F_k = E_k L_k^-T).
         O(T b^3) instead of O((T b)^3); per-iteration solves are two
-        O(T b^2) block-bidiagonal sweeps of batched small matmuls (MXU).
+        O(T b^2) block-bidiagonal sweeps of batched small matmuls.
 
         The ADMM iterate math never sees the structure — this is the
         "block-masked dense" realization planned in SURVEY C5: M is formed
@@ -598,13 +599,11 @@ def _arrow_factor_factory(b: int, c: int):
     caller must guarantee the structure — e.g. stage-wise problems whose
     only cross-stage coupling runs through the trailing ``c`` variables.
 
-    Design (TPU-measured): an earlier version kept the factorization in
-    block form and ran the hot ADMM solve as a chain of per-block einsums
-    (Dinv matvec -> border correction -> back-substitution).  On TPU that
-    LOSES to the dense backend at every tested shape — the per-iteration
-    chain puts the b-sized axis on lanes (b << 128 => lane-starved ops,
-    one dispatch per einsum), and at b >= 32 the uncorrected f32 block
-    inverses degraded convergence outright (solved 0.58 at n=770).  The
+    Design: an earlier version kept the factorization in block form and
+    ran the hot ADMM solve as a chain of per-block einsums (Dinv matvec
+    -> border correction -> back-substitution); at b >= 32 the
+    uncorrected f32 block inverses degraded convergence outright (solved
+    0.58 at n=770).  The
     structure is therefore exploited ONLY where it mathematically matters
     — the factorization — via the closed-form bordered inverse
 
@@ -618,7 +617,7 @@ def _arrow_factor_factory(b: int, c: int):
     the default backend uses (one full Newton-Schulz against M restores
     near-backsolve f32 accuracy).  The hot loop is then the identical
     single-matvec fast path — arrow pays dense iteration cost but
-    O(T b^3 + n^2 c) + MXU-matmul factor cost instead of a depth-n
+    O(T b^3 + n^2 c) + matmul factor cost instead of a depth-n
     Cholesky/triangular-inverse chain.
     """
 
@@ -680,7 +679,7 @@ def _arrow_factor_factory(b: int, c: int):
                 ],
                 axis=-2,
             )
-            # One full Newton-Schulz step against M (two MXU matmuls):
+            # One full Newton-Schulz step against M (two matmuls):
             # contracts the composed block-inverse error quadratically —
             # without it, f32 runs at b >= 32 stall (see docstring).
             Minv = hmat(Minv, 2.0 * jnp.eye(n, dtype=M.dtype) - hmat(M, Minv))

@@ -30,8 +30,8 @@ def qp_solve_batch(
     """Solve a batch of QPs (leading batch axis on every problem leaf).
 
     ``impl="vmap"`` is the semantics-defining path; ``impl="fused"`` is the
-    TPU production path (scalar loop counters, explicit convergence masks,
-    Pallas chunk kernel) — same algorithm, measured-identical optima.
+    production path (scalar loop counters, explicit convergence masks, the
+    fused ADMM chunk) — same algorithm, tested-identical optima.
     """
     if settings.scaling > 0:
         # equilibrate per problem, solve scaled through whichever tier,
@@ -48,10 +48,6 @@ def qp_solve_batch(
         from sqp_solver_tpu.qp.admm_batched import qp_solve_fused
 
         return qp_solve_fused(qp, settings, state)
-    if impl == "kernel":
-        from sqp_solver_tpu.ops.qp_kernel import qp_solve_kernel
-
-        return qp_solve_kernel(qp, settings, state)
     if state is None:
         return jax.vmap(lambda p: qp_solve(p, settings))(qp)
     return jax.vmap(lambda p, s: qp_solve(p, settings, s))(qp, state)
@@ -71,7 +67,7 @@ def sqp_solve_batch(
     detected from ``l`` vs ``x0``'s batch dim.
 
     ``impl="vmap"`` is the semantics-defining path; ``impl="fused"`` the
-    TPU production path (see sqp.solver_batched).
+    production path (see sqp.solver_batched).
     """
     if impl == "fused":
         from sqp_solver_tpu.sqp.solver_batched import sqp_solve_fused

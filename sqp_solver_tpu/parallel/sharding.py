@@ -1,7 +1,7 @@
 """Multi-chip scaling: shard the problem batch across a device mesh.
 
 The reference is single-threaded CPU (SURVEY.md §2: no parallelism of any
-kind); the TPU-native equivalent scales the *batch axis* over ICI with
+kind); here the *batch axis* is scaled over a 1-D device mesh with
 ``jax.sharding`` — individual solves never communicate, so the sharded
 batched solve is pure SPMD with zero collectives.  Two entry points:
 
@@ -73,8 +73,8 @@ def sharded_qp_solve_batch(
 ) -> QPResult:
     """Batch-of-QPs solve, batch axis sharded over the mesh via shard_map.
 
-    ``impl`` selects the per-device solver tier ("vmap" / "fused" /
-    "kernel") — each device runs it on its local shard."""
+    ``impl`` selects the per-device solver tier ("vmap" / "fused") — each
+    device runs it on its local shard."""
     mesh = mesh or make_mesh()
 
     def local(qp_shard):
@@ -102,9 +102,8 @@ def sharded_sqp_solve_batch(
     The problem's data leaves must be batched (leading B) so each device
     receives its shard; use ``jax.tree.map(lambda a: jnp.broadcast_to(...))``
     to batch shared data.  ``impl="fused"`` runs the production tier
-    (including the fused SQP-step kernel when ``settings.qp_impl ==
-    "kernel"``) independently on every device's shard — the parallelism
-    stays embarrassingly data-parallel, so kernels and collectives never
+    independently on every device's shard — the parallelism stays
+    embarrassingly data-parallel, so kernels and collectives never
     interact.
     """
     mesh = mesh or make_mesh()

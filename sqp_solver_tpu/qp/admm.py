@@ -1,4 +1,4 @@
-"""TPU-native ADMM QP solver (OSQP algorithm).
+"""Per-problem ADMM QP solver (OSQP algorithm).
 
 Functional re-design of the reference solver core (C4/C7/C9,
 ``src/qp.cpp:11-157``): the whole solve is one traced program —
@@ -6,7 +6,7 @@ Functional re-design of the reference solver core (C4/C7/C9,
 ``lax.while_loop`` so it jits, vmaps over problem batches, and shards with
 ``shard_map``.
 
-Loop structure (the TPU translation of the reference's factorization
+Loop structure (the traced form of the reference's factorization
 economy, ``src/qp.cpp:136-142``: factorize at setup + only on rho updates):
 
     while not done:                        # rho epochs (outer while_loop)

@@ -27,9 +27,8 @@ and the parameter gradients are outer products:
 
 The adjoint solve IS the polish machinery
 (:func:`sqp_solver_tpu.qp.polish.kkt_solve_schur_refined`): the Schur
-preconditioner + ideal-operator refinement, which routes through the
-whole-pass Pallas kernel on large TPU batches — the backward pass is
-TPU-native for free.
+preconditioner + ideal-operator refinement — so the backward pass is
+the same batched linear algebra as the forward polish.
 
 Caveats (standard for implicit differentiation of active-set solutions):
 the gradient is exact under strict complementarity and LICQ at x*;
@@ -74,8 +73,8 @@ def qp_solve_diff(
     ``jax.grad`` of any scalar function of the result propagates to
     every problem leaf (P, q, A, l, u) via the implicit function theorem
     at the converged active set.  ``impl`` picks the forward tier
-    ("vmap" / "fused" / "kernel" — single problems always use the
-    per-problem solver).
+    ("vmap" / "fused" — single problems always use the per-problem
+    solver).
     """
     x, _, _ = _solve_fwd_parts(qp, settings, impl)
     return x
@@ -109,8 +108,7 @@ def _bwd(settings, impl, residuals, g):
         nu = jnp.where(act, y, 0.0)
 
         # adjoint KKT solve: same operator, rhs (-g, 0) — the polish
-        # machinery (Schur preconditioner + ideal-operator refinement;
-        # Pallas whole-pass kernel on large TPU batches)
+        # machinery (Schur preconditioner + ideal-operator refinement)
         dz_x, dz_nu, fail = kkt_solve_schur_refined(
             P, A_m, act, -g, jnp.zeros_like(l),
             delta=settings.polish_delta, sweeps=settings.polish_sweeps,

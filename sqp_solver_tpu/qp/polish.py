@@ -8,21 +8,20 @@ of the duals (the OSQP recipe, with a relative threshold so eps-noise
 duals on inactive rows don't count; EQUALITY rows are always active), and
 re-solves the equality-constrained KKT system on that active set.
 
-The KKT solve (:func:`kkt_solve_schur_refined`) is TPU-native by design:
-eliminate the multipliers from the regularized system
+The KKT solve (:func:`kkt_solve_schur_refined`) eliminates the
+multipliers from the regularized system
 
     [[P + dI,  Ãᵀ], [Ã, -dI]] [dx; nu] = [r1; r2]      (Ã: inactive rows zeroed)
 
 into the SPD n x n Schur matrix M = P + dI + (1/d)ÃᵀÃ — one batched
-matmul (MXU) + one batched Cholesky — then remove the O(d) regularization
+matmul + one batched Cholesky — then remove the O(d) regularization
 bias with iterative refinement against the IDEAL (d-free) active-set
 operator.  Each sweep contracts the error by ~d, so a handful of sweeps
 reaches the dtype floor.  Measured on the badly-scaled huber family in
 f32: ADMM stalls at ~1e-2; a direct d=1e-6 LDLᵀ is unusable (zero Hessian
 block ⇒ 1e-6 pivots against O(1) couplings); this scheme reaches ~3e-7 vs
 the long-double oracle.  It also removes the need for any (n+m)x(n+m)
-factorization anywhere in the polish path — the previous in-kernel D x D
-LDLᵀ at n=128 (D=257) was a pathological >30-minute Mosaic compile.
+factorization anywhere in the polish path.
 
 The polished candidate is accepted PER PROBLEM only where the KKT error
 improves, judged lexicographically: (stationarity, violation) first — the
@@ -96,8 +95,7 @@ def reclassify_active_set(l, u, eq, act_low, act_up, nu, Ax_pol):
     wrong sign (forcing an actually-inactive row to its bound yields a
     multiplier fighting the objective — the classic active-set dual
     test).  Both failure modes were measured on the OSQP-paper
-    portfolio family's degenerate box rows
-    (scripts/portfolio_fix_probe2.py); neither is visible in the raw
+    portfolio family's degenerate box rows; neither is visible in the raw
     ADMM iterate's primal OR dual.  Returns (act_low, act_up)."""
     vtol = 1e-9 * (
         1.0
@@ -124,7 +122,6 @@ def kkt_solve_schur_refined(
     nu0=None,
     delta: float = 1e-2,
     sweeps: int = 6,
-    use_kernel=None,
 ):
     """Solve the ideal active-set KKT system
 
@@ -134,43 +131,12 @@ def kkt_solve_schur_refined(
     zeroed and ``r2`` is zero on inactive rows.  Returns (x, nu, fail).
 
     Preconditioner: Cholesky of M = P + delta I + (1/delta) ÃᵀÃ (SPD,
-    batched, MXU-friendly); each refinement sweep solves the
-    delta-regularized system exactly via the Schur form and contracts the
-    remaining error by ~delta.  ``x0``/``nu0`` warm-start the sweeps.
-
-    Large TPU batches route the WHOLE solve (Gram + Cholesky +
-    triangular inverse + sweeps) through one Pallas call
-    (:func:`sqp_solver_tpu.ops.qp_kernel.polish_kkt_kernel`) — the same
-    mathematics without the per-sweep XLA dispatches; ``use_kernel``
-    forces the choice (tests exercise both paths on any backend).
+    batched); each refinement sweep solves the delta-regularized system
+    exactly via the Schur form and contracts the remaining error by
+    ~delta.  ``x0``/``nu0`` warm-start the sweeps.
     """
     dtype = P.dtype
     n = P.shape[-1]
-    if use_kernel is None:
-        # n <= 128: the whole-pass kernel's design envelope — at n=192
-        # Mosaic register spills blow the 127 MB VMEM cap (measured r5)
-        use_kernel = (
-            P.ndim == 3
-            and P.shape[0] * n >= 256 * 32
-            and n <= 128
-            and jax.default_backend() == "tpu"
-        )
-    if use_kernel:
-        from sqp_solver_tpu.ops.qp_kernel import polish_kkt_kernel
-
-        act_t = act.T.astype(dtype)
-        x_t, nu_t, fail_row, _ = polish_kkt_kernel(
-            jnp.moveaxis(P, 0, -1),
-            jnp.moveaxis(A_m, 0, -1),
-            act_t,
-            r1.T,
-            jnp.where(act, r2, 0.0).T,
-            (jnp.zeros_like(r2) if nu0 is None else nu0).T,
-            delta=delta,
-            sweeps=sweeps,
-            x0t=None if x0 is None else x0.T,
-        )
-        return x_t.T, jnp.where(act, nu_t.T, 0.0), fail_row > 0.5
     with jax.default_matmul_precision("highest"):
         d_c = jnp.asarray(delta, dtype)
         eye = jnp.eye(n, dtype=dtype)
@@ -180,39 +146,20 @@ def kkt_solve_schur_refined(
             + (1.0 / d_c)
             * jnp.einsum("...mi,...mj->...ij", A_m, A_m, precision=lax.Precision.HIGHEST)
         )
-        # Explicit inverse instead of per-sweep triangular solves, with
-        # two backends:
-        #  * the lane-vectorized Pallas SPD-inverse kernel for large TPU
-        #    batches (measured n=128 B=1024: ~6 ms vs ~25 ms for XLA's
-        #    batched cholesky + solve_triangular against I — the
-        #    cholesky alone is 15 ms, the dominant cost of the whole
-        #    polish);
-        #  * XLA cholesky + one solve against I otherwise.
-        # One Newton-Schulz step (two MXU matmuls) recovers backsolve-
-        # grade accuracy either way, and the refinement sweeps against
-        # the IDEAL operator absorb the O(eps) inverse error exactly
-        # like the delta bias.  Every sweep is then an MXU matvec.
-        use_kernel = (
-            M.ndim == 3
-            and M.shape[0] * n >= 256 * 32
-            and n <= 128  # same envelope as the whole-pass kernel (r5)
-            and jax.default_backend() == "tpu"
+        # Explicit inverse instead of per-sweep triangular solves:
+        # Cholesky + one solve against I.  One Newton-Schulz step (two
+        # matmuls) recovers backsolve-grade accuracy, and the refinement
+        # sweeps against the IDEAL operator absorb the O(eps) inverse
+        # error exactly like the delta bias.  Every sweep is then a
+        # batched matvec.
+        L = jnp.linalg.cholesky(M)
+        fail = jnp.isnan(L[..., -1, -1])
+        Li = jax.scipy.linalg.solve_triangular(
+            L, jnp.broadcast_to(eye, M.shape), lower=True
         )
-        if use_kernel:
-            from sqp_solver_tpu.ops.qp_kernel import spd_inverse_kernel
-
-            Minv_t, fail_row = spd_inverse_kernel(jnp.moveaxis(M, 0, -1))
-            Minv = jnp.moveaxis(Minv_t, -1, 0)
-            fail = fail_row > 0.5
-        else:
-            L = jnp.linalg.cholesky(M)
-            fail = jnp.isnan(L[..., -1, -1])
-            Li = jax.scipy.linalg.solve_triangular(
-                L, jnp.broadcast_to(eye, M.shape), lower=True
-            )
-            Minv = jnp.einsum(
-                "...ki,...kj->...ij", Li, Li, precision=lax.Precision.HIGHEST
-            )
+        Minv = jnp.einsum(
+            "...ki,...kj->...ij", Li, Li, precision=lax.Precision.HIGHEST
+        )
         Minv = jnp.einsum(
             "...ik,...kj->...ij",
             Minv,
@@ -229,9 +176,7 @@ def kkt_solve_schur_refined(
         nu = jnp.zeros_like(r2) if nu0 is None else jnp.where(act, nu0, 0.0)
         # Stacked-operand sweep form: the textbook sweep is 6 batched
         # matvecs (P x, Ã x, Ã'nu, Ã'res2, M⁻¹·, Ã dx) issued as separate
-        # XLA ops — at bench shapes each op carries a fixed ~0.3-0.4 ms
-        # dispatch/layout cost that dominates the (bandwidth-trivial)
-        # FLOPs.  Stacking S = [P; Ã] yields P·v and Ã·v in ONE contraction,
+        # XLA ops.  Stacking S = [P; Ã] yields P·v and Ã·v in ONE contraction,
         # the two transpose-applications merge via Ã'(nu - res2/d), and
         # carrying w = S x across sweeps (linear update w += S dx) removes
         # the re-evaluation — 3 matvecs/sweep, identical mathematics.
@@ -271,8 +216,9 @@ def polish_qp(
     if passes is None:
         passes = settings.polish_passes
     # pin matmul precision for the WHOLE polish, including the accept
-    # guard's KKT residuals: a bf16-decomposed guard would accept/reject
-    # candidates on corrupted errors (CLAUDE.md precision rule)
+    # guard's KKT residuals: a reduced-precision (TF32) guard would
+    # accept/reject candidates on corrupted errors (CLAUDE.md precision
+    # rule)
     with jax.default_matmul_precision("highest"):
         return _polish_impl(qp, result, delta, refine_steps, passes)
 
@@ -288,8 +234,7 @@ def _polish_impl(qp, result, delta, refine_steps, passes=1):
     # rp/rd ~ 1e-7 at a NON-fixed-point whose y is supported on inactive
     # rows (comp slack ~ 0.8, objective 0.4 above optimal) — a
     # lexicographic guard keyed on rp/rd first can never accept the
-    # repaired candidate there (measured, scripts/portfolio_fix_probe2
-    # follow-up) ---
+    # repaired candidate there) ---
     def kkt_err(xx, yy, Ax):
         res_d = _linf(_mv(P, xx) + q + _mtv(A, yy))
         viol = jnp.maximum(

@@ -3,8 +3,8 @@
 The reference library re-implements OSQP's ADMM loop but drops OSQP's
 problem scaling entirely — on badly-scaled data (e.g. the huber-fitting
 family, models/families.py) the unscaled iteration stalls orders of
-magnitude above tolerance, and the effect is much worse in f32 (the TPU
-compute dtype) than in the reference's doubles.  This module supplies the
+magnitude above tolerance, and the effect is much worse in f32 (the
+device compute dtype) than in the reference's doubles.  This module supplies the
 missing capability as modified Ruiz equilibration of the KKT matrix
 
     [[P, Aᵀ],
@@ -21,7 +21,7 @@ with diagonal D (n), E (m) and cost scalar c; solutions map back as
 
     x = D x̂,   z = E⁻¹ ẑ,   y = E ŷ / c.
 
-TPU-native design: a fixed-trip ``lax.fori_loop`` of elementwise ops and
+Design: a fixed-trip ``lax.fori_loop`` of elementwise ops and
 row/column max-reductions — fully fusible by XLA, vmaps over a leading
 batch axis (per-problem scalings), and runs identically in every solver
 tier because it wraps the problem, not the solver.  Termination inside
@@ -51,7 +51,6 @@ from sqp_solver_tpu.qp.types import (
 __all__ = [
     "Scaling",
     "ruiz_equilibrate",
-    "ruiz_equilibrate_t",
     "scale_state",
     "unscale_result",
     "rescore",
@@ -179,89 +178,6 @@ def ruiz_equilibrate(
     return QuadraticProblem(P=P, q=q, A=A, l=l, u=u), Scaling(d=d, e=e, c=c)
 
 
-def ruiz_equilibrate_t(Pt, qt, At, lt, ut, iters: int = 10):
-    """Transposed-layout (kernel-tier) Ruiz equilibration.
-
-    Same algorithm as :func:`ruiz_equilibrate` — parity-tested against it
-    (tests/test_scaling.py) — but on arrays with the PROBLEM index on the
-    minor (lane) axis: ``Pt (n, n, B)``, ``At (m, n, B)``, ``qt (n, B)``,
-    ``lt/ut (m, B)``.  The kernel tier keeps the Hessian/Jacobian in this
-    layout end-to-end (see sqp.solver_kernel); equilibrating here avoids
-    the ~2-6 GB/s minor-axis relayout a batch-major equilibration would
-    force.  Returns ``(Pt, qt, At, lt, ut, d (n, B), e (m, B), c (B,))``.
-    """
-    from sqp_solver_tpu.qp.classify import RHO_TOL
-
-    dtype = Pt.dtype
-    n = Pt.shape[0]
-    m = At.shape[0]
-    B = Pt.shape[-1]
-
-    loose_l = lt <= -LOOSE_BOUNDS_THRESH
-    loose_u = ut >= LOOSE_BOUNDS_THRESH
-    l0 = jnp.where(loose_l, 0.0, lt)
-    u0 = jnp.where(loose_u, 0.0, ut)
-
-    d = jnp.ones((n, B), dtype)
-    e = jnp.ones((m, B), dtype)
-    c = jnp.ones((B,), dtype)
-
-    def body(_, carry):
-        P, q, A, l, u, d, e, c = carry
-        col_norm = jnp.maximum(
-            jnp.max(jnp.abs(P), axis=0), jnp.max(jnp.abs(A), axis=0)
-        )  # (n, B)
-        row_norm = jnp.max(jnp.abs(A), axis=1)  # (m, B)
-        dd = _guard(1.0 / jnp.sqrt(col_norm))
-        de = _guard(1.0 / jnp.sqrt(row_norm))
-        P = dd[:, None, :] * P * dd[None, :, :]
-        q = q * dd
-        A = de[:, None, :] * A * dd[None, :, :]
-        l = l * de
-        u = u * de
-        pcol = jnp.mean(jnp.max(jnp.abs(P), axis=0), axis=0)  # (B,)
-        qn = jnp.max(jnp.abs(q), axis=0)
-        g = _guard(1.0 / jnp.maximum(pcol, qn))
-        P = P * g[None, None, :]
-        q = q * g[None, :]
-        return P, q, A, l, u, d * dd, e * de, c * g
-
-    P, q, A, l, u, d, e, c = jax.lax.fori_loop(
-        0, iters, body, (Pt, qt, At, l0, u0, d, e, c)
-    )
-
-    # classification invariance (see ruiz_equilibrate for the rationale)
-    gap0 = ut - lt
-    ineq_finite = (gap0 >= RHO_TOL) & ~loose_l & ~loose_u
-    eq0 = gap0 < RHO_TOL
-    ce_up = jnp.where(
-        ineq_finite & ((u - l) < RHO_TOL),
-        (1.01 * RHO_TOL) / jnp.maximum(u - l, 1e-30),
-        jnp.where(
-            eq0 & ((u - l) >= RHO_TOL),
-            (0.5 * RHO_TOL) / jnp.maximum(u - l, 1e-30),
-            1.0,
-        ),
-    )
-    bound_mag = jnp.maximum(
-        jnp.abs(jnp.where(loose_l, 0.0, l)), jnp.abs(jnp.where(loose_u, 0.0, u))
-    ) * ce_up
-    ce_down = jnp.where(
-        bound_mag > 0.1 * LOOSE_BOUNDS_THRESH,
-        (0.1 * LOOSE_BOUNDS_THRESH) / jnp.maximum(bound_mag, 1e-30),
-        1.0,
-    )
-    ce = ce_up * ce_down
-    A = A * ce[:, None, :]
-    l = l * ce
-    u = u * ce
-    e = e * ce
-
-    l = jnp.where(loose_l, jnp.asarray(-_BIG, dtype), l)
-    u = jnp.where(loose_u, jnp.asarray(_BIG, dtype), u)
-    return P, q, A, l, u, d, e, c
-
-
 def solve_with_scaling(inner_solve, qp, settings, state=None) -> QPResult:
     """The one scale->solve->unscale->polish->rescore pipeline, shared by
     every entry point (a hand-synced copy per caller already diverged once
@@ -274,9 +190,7 @@ def solve_with_scaling(inner_solve, qp, settings, state=None) -> QPResult:
     scaled, s = ruiz_equilibrate(qp, settings.scaling)
     # check_comp_slack is stripped from the INNER solve: in scaled space
     # the violation is sub-threshold (unscaling amplifies ~1e4x —
-    # measured r5), so the in-loop term is useless there, and stripping
-    # it lets the whole-solve kernel tiers (which reject the flag — they
-    # terminate in-kernel) run under this pipeline.  The TRUE check
+    # measured r5), so the in-loop term is useless there.  The TRUE check
     # happens in rescore() below, on original coordinates, after polish.
     inner = _dc.replace(
         settings, scaling=0, polish=False, check_comp_slack=False
@@ -319,8 +233,8 @@ def rescore(
     termination math, src/qp.cpp:344-361, evaluated unscaled).
 
     Matmul precision is pinned HERE (not only in callers): the status
-    decision must never be made from TPU bf16-decomposed residuals — a
-    converged problem would read as MAX_ITER_EXCEEDED (CLAUDE.md: every
+    decision must never be made from reduced-precision (TF32) residuals —
+    a converged problem would read as MAX_ITER_EXCEEDED (CLAUDE.md: every
     solver entry point pins precision)."""
     with jax.default_matmul_precision("highest"):
         return _rescore_impl(problem, result, settings)

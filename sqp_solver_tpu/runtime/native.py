@@ -1,9 +1,9 @@
 """ctypes bindings for the native C++ QP engine (csrc/native_qp.cpp).
 
 The shared library is built lazily with g++ on first use and cached under
-``~/.cache/sqp_solver_tpu``.  Used as (a) the long-double *oracle* in
-property-based conformance tests, (b) a threaded CPU fallback for batch
-solves on machines without an accelerator.
+``<checkout>/.native_build`` (or ``$SQP_SOLVER_TPU_CACHE``).  It is the
+long-double *oracle* of the conformance tests and of bench.py's accuracy
+rows — never a solver fallback.
 """
 
 from __future__ import annotations
@@ -62,21 +62,25 @@ def _build() -> Optional[ctypes.CDLL]:
         _BUILD_ERR = f"source not found: {_SRC}"
         return None
     cache = pathlib.Path(
-        os.environ.get("SQP_SOLVER_TPU_CACHE", os.path.expanduser("~/.cache/sqp_solver_tpu"))
+        os.environ.get("SQP_SOLVER_TPU_CACHE", _SRC.parent.parent / ".native_build")
     )
     cache.mkdir(parents=True, exist_ok=True)
     tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
     so = cache / f"libnative_qp_{tag}.so"
     if not so.exists():
+        # build under a private name and rename: concurrent test workers
+        # may build at once, and none may load a half-written library
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [
             "g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-            str(_SRC), "-o", str(so), "-lpthread",
+            str(_SRC), "-o", str(tmp), "-lpthread",
         ]
         try:
             subprocess.run(cmd, check=True, capture_output=True, text=True)
         except (subprocess.CalledProcessError, FileNotFoundError) as e:
             _BUILD_ERR = getattr(e, "stderr", str(e))
             return None
+        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     dp = ctypes.POINTER(ctypes.c_double)
     ip = ctypes.POINTER(ctypes.c_int32)

@@ -1,4 +1,4 @@
-"""TPU-native SQP solver — Algorithm 18.3 (Nocedal & Wright).
+"""Per-problem SQP solver — Algorithm 18.3 (Nocedal & Wright).
 
 Functional re-design of the reference outer loop (C12-C16,
 ``src/sqp.cpp:27-343``): one jitted ``lax.while_loop`` per solve —

@@ -1,19 +1,18 @@
 """Precision-pinned matmul helpers + the solver-wide precision decorator.
 
-On TPU, XLA's default matmul precision decomposes f32 contractions into
-bf16 passes — fine for neural nets, fatal for a linear-system solver (the
-Cholesky/Schur pipeline loses ~3 decimal digits and ADMM stops
-converging; measured: batch solved-fraction 0.42 -> 0.76 and median SQP
-iterations 15 -> 7 just from pinning precision).  Every contraction on the
-solver's critical path goes through these helpers so library accuracy
-doesn't depend on global config.
+On Hopper, XLA's default matmul precision lets f32 contractions run on
+the tensor cores in TF32, which keeps ~10 mantissa bits (about three
+decimal digits) — fine for neural nets, fatal for a linear-system
+solver: the Cholesky/Schur pipeline loses those digits and ADMM stops
+converging.  Every contraction on
+the solver's critical path goes through these helpers so library
+accuracy doesn't depend on global config.
 
 ``pin_precision`` wraps a whole solver entry point in
 ``jax.default_matmul_precision("highest")`` — it must cover USER
 callables too (objective/constraint autodiff at default precision
-poisons the QP data and line-search merit values; measured round 1:
-batch err_p99 7.9e-2 -> 1.8e-3), which is why entry points pin the whole
-trace rather than only their own contractions.
+poisons the QP data and line-search merit values), which is why entry
+points pin the whole trace rather than only their own contractions.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ __all__ = ["hdot", "hmat", "pin_precision"]
 
 
 def hmat(a, b):
-    """matmul at HIGHEST precision (full f32 on MXU)."""
+    """matmul at HIGHEST precision (full f32, no TF32)."""
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
 

@@ -65,32 +65,3 @@ class TestBFGS:
         assert out.shape == (4, 2, 2)
         for b in np.asarray(out):
             assert _is_posdef(b)
-
-
-class TestTransposedXLAUpdate:
-    def test_matches_vmapped_reference_update(self):
-        """_bfgs_update_t (XLA, transposed layout — the n>=64 kernel-tier
-        path) must match the per-problem bfgs_update under vmap, including
-        damped, skipped (tiny s'r), reset, and no-update lanes."""
-        import jax
-        import numpy as np
-        from sqp_solver_tpu.sqp.solver_kernel import _bfgs_update_t
-
-        rng = np.random.default_rng(0)
-        B_, n = 16, 6
-        M = rng.normal(size=(B_, n, n))
-        H = jnp.asarray(M @ M.transpose(0, 2, 1) + np.eye(n), jnp.float32)
-        s = jnp.asarray(rng.normal(size=(B_, n)), jnp.float32)
-        # mix of curvature signs so some lanes damp
-        y = jnp.asarray(rng.normal(size=(B_, n)) * rng.choice([2.0, -0.5], size=(B_, 1)),
-                        jnp.float32)
-        reset = jnp.asarray(rng.random(B_) < 0.25)
-        upd = jnp.asarray(rng.random(B_) < 0.8)
-
-        out_t = _bfgs_update_t(jnp.moveaxis(H, 0, -1), s, y, reset, upd)
-        got = np.asarray(jnp.moveaxis(out_t, -1, 0))
-
-        ref = np.asarray(jax.vmap(bfgs_update)(H, s, y))
-        expect = np.where(np.asarray(upd)[:, None, None], ref, np.asarray(H))
-        expect = np.where(np.asarray(reset)[:, None, None], np.eye(n), expect)
-        np.testing.assert_allclose(got, expect, rtol=2e-5, atol=2e-5)

@@ -193,32 +193,3 @@ class TestSQPDiff:
             lambda xx: jnp.sum(sqp_solve_diff(problem, xx, None, settings, "vmap"))
         )(x0)
         np.testing.assert_array_equal(np.asarray(g), 0.0)
-
-
-def test_kernel_and_xla_adjoint_routes_agree():
-    """The backward pass auto-routes through the whole-pass Pallas polish
-    kernel on large TPU batches (qp/polish.py kkt_solve_schur_refined
-    use_kernel heuristic).  Pin that the two routes produce the SAME
-    gradients: force each route via the use_kernel flag (the Pallas
-    kernel runs in interpret mode on CPU — same mathematics)."""
-    import functools
-    from unittest import mock
-
-    from sqp_solver_tpu.qp import diff as qp_diff
-    from sqp_solver_tpu.qp.polish import kkt_solve_schur_refined
-
-    qp = random_qp_batch(batch=3, n=6, m=9, seed=11, dtype=jnp.float32)
-    settings = QPSettings(eps_abs=1e-7, eps_rel=1e-7, max_iter=4000,
-                          adaptive_rho=True, polish=True)
-
-    def loss(q):
-        x = qp_diff.qp_solve_diff(dataclasses.replace(qp, q=q), settings)
-        return jnp.sum(x**2)
-
-    grads = {}
-    for route in (False, True):
-        forced = functools.partial(kkt_solve_schur_refined, use_kernel=route)
-        with mock.patch.object(qp_diff, "kkt_solve_schur_refined", forced):
-            grads[route] = np.asarray(jax.grad(loss)(qp.q))
-    assert np.isfinite(grads[False]).all()
-    np.testing.assert_allclose(grads[True], grads[False], rtol=0, atol=1e-5)

@@ -7,7 +7,6 @@ import numpy as np
 import pytest
 
 from sqp_solver_tpu.models.mpc import random_qp_batch
-from sqp_solver_tpu.ops.qp_kernel import qp_solve_kernel
 from sqp_solver_tpu.qp import QPSettings, QPStatus, QuadraticProblem, qp_solve
 from sqp_solver_tpu.qp.admm_batched import qp_solve_fused
 from sqp_solver_tpu.sqp import SQPSettings, sqp_solve
@@ -36,8 +35,9 @@ class TestMixedBounds:
         assert int(ref.info.status) == QPStatus.SOLVED
         bc = lambda a: jnp.broadcast_to(a, (8,) + a.shape)
         qp_b = QuadraticProblem(*(bc(v) for v in (qp.P, qp.q, qp.A, qp.l, qp.u)))
-        fused = qp_solve_fused(qp_b, S, backend="xla")
-        kern = qp_solve_kernel(qp_b.astype(jnp.float32), S, interpret=True)
+        fused = qp_solve_fused(qp_b, S)
+        qp_f32 = jax.tree.map(lambda v: v.astype(jnp.float32), qp_b)
+        kern = qp_solve_fused(qp_f32, S)
         np.testing.assert_allclose(np.asarray(fused.x[0]), np.asarray(ref.x), atol=1e-9)
         np.testing.assert_allclose(np.asarray(kern.x[0]), np.asarray(ref.x), atol=1e-4)
 

@@ -1,7 +1,7 @@
 """Device-side family generators (models/families.py *_device twins) and
 the bench's NLP stress families (models/benchmark.py).
 
-The device twins feed the TPU bench rows (bench.py families leg); these
+The device twins feed the bench rows (bench.py families leg); these
 tests pin (a) that every generated class solves and agrees with the
 long-double C++ oracle, (b) that the exp-chain family genuinely needs a
 multi-outer budget (the bench row's honesty claim), and (c) that the

@@ -119,66 +119,20 @@ class TestFusedSQP:
             )
 
 
-class TestLayoutNativeHooks:
-    def test_hooks_match_autodiff(self):
-        """constraint_linearized_t / lagrangian_hessian_t (the kernel
-        tier's layout-native hooks) must agree with the autodiff default
-        and leave the solution unchanged."""
-        import dataclasses
-
-        from sqp_solver_tpu.models.benchmark import sphere_cap_nlp_batch
-        from sqp_solver_tpu.sqp.solver_kernel import sqp_solve_kernel_fused
-
-        problem, x0 = sphere_cap_nlp_batch(12, 8, seed=4, dtype=jnp.float32)
-        assert problem.constraint_linearized_t is not None
-        # hook vs autodiff on raw arrays
-        cv, Jt = problem.constraint_linearized_t(x0, problem.params)
-        J_ad = jax.vmap(jax.jacfwd(lambda x: problem.constraint(x, None)))(x0)
-        np.testing.assert_allclose(
-            np.asarray(Jt), np.asarray(jnp.moveaxis(J_ad, 0, -1)), atol=1e-6
-        )
-        cv_ad = jax.vmap(lambda x: problem.constraint(x, None))(x0)
-        np.testing.assert_allclose(np.asarray(cv), np.asarray(cv_ad), atol=1e-6)
-
-        settings = SQPSettings(
-            max_iter=12, termination="kkt", eps_prim=1e-3, eps_dual=1e-3,
-            schedule="fixed", qp_impl="kernel", polish=True,
-        )
-        with_hooks = sqp_solve_kernel_fused(problem, x0, None, settings)
-        bare = dataclasses.replace(
-            problem, constraint_linearized_t=None, lagrangian_hessian_t=None
-        )
-        without = sqp_solve_kernel_fused(bare, x0, None, settings)
-        np.testing.assert_allclose(
-            np.asarray(with_hooks.x), np.asarray(without.x), atol=5e-5
-        )
-        np.testing.assert_array_equal(
-            np.asarray(with_hooks.info.status), np.asarray(without.info.status)
-        )
-
-
 class TestSOCFactorReuse:
-    def test_soc_reuses_factor_and_matches_kernel_tiers(self):
+    def test_soc_reuses_factor_and_matches_vmap_tier(self):
         """SOC re-solves reuse the first QP's factorization (reference
-        TODO src/sqp.cpp:273).  After the rho/factor pairing change the
-        carried rho is guaranteed to match the carried Minv; assert the
-        kernel tier with SOC still reproduces the fused tier's optima and
-        that enabling SOC does not change the factorization count per
-        outer iteration (the reuse contract)."""
-        import dataclasses
-
+        TODO src/sqp.cpp:273): the fused tier with SOC must reproduce the
+        per-problem tier's statuses and optima."""
         from sqp_solver_tpu.models.benchmark import sphere_cap_nlp_batch
-        from sqp_solver_tpu.sqp.solver_kernel import sqp_solve_kernel_fused
 
         problem, x0 = sphere_cap_nlp_batch(12, 6, seed=11, dtype=jnp.float32)
         base = SQPSettings(
             max_iter=10, termination="kkt", eps_prim=1e-3, eps_dual=1e-3,
-            schedule="fixed", qp_impl="kernel", polish=True,
-            second_order_correction=True,
+            schedule="fixed", polish=True, second_order_correction=True,
         )
-        ker = sqp_solve_kernel_fused(problem, x0, None, base)
-        fus = sqp_solve_fused(problem, x0, None,
-                              dataclasses.replace(base, qp_impl="fused"))
+        ker = sqp_solve_batch(problem, x0, None, base, impl="vmap")
+        fus = sqp_solve_fused(problem, x0, None, base)
         st_k = np.asarray(ker.info.status)
         st_f = np.asarray(fus.info.status)
         # unconditional SOC (reference quirk Q6: the trigger heuristic is

@@ -97,244 +97,6 @@ def test_sqp_polish_parity_per_problem_vs_batched():
     )
 
 
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
-def test_polish_kkt_kernel_matches_schur_refined(dtype):
-    """The in-kernel whole-pass polish solve (ops.qp_kernel.polish_kkt_kernel)
-    is the same mathematics as qp.polish.kkt_solve_schur_refined with x0=0:
-    same Schur preconditioner, same ideal-operator sweeps.  (The kernel skips
-    the Newton-Schulz step — its triangular inverse is backsolve-grade — so
-    agreement is to sweep-converged accuracy, not bitwise.)"""
-    from sqp_solver_tpu.ops.qp_kernel import polish_kkt_kernel
-    from sqp_solver_tpu.qp.polish import kkt_solve_schur_refined
-
-    B, n, m = 12, 10, 13
-    key = jax.random.PRNGKey(5)
-    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
-    G = jax.random.normal(k1, (B, n, n), dtype)
-    H = jnp.einsum("bij,bkj->bik", G, G) + 0.5 * jnp.eye(n, dtype=dtype)
-    J = jax.random.normal(k2, (B, m, n), dtype)
-    act = jax.random.uniform(k3, (B, m)) < 0.5
-    J_m = jnp.where(act[..., None], J, 0.0)
-    r1 = jax.random.normal(k4, (B, n), dtype)
-    b = jnp.where(act, jax.random.normal(k5, (B, m), dtype), 0.0)
-    nu0 = jnp.zeros((B, m), dtype)
-
-    x_ref, nu_ref, fail_ref = kkt_solve_schur_refined(
-        H, J_m, act, r1, b, nu0=nu0
-    )
-    dx_t, nu_t, fail_k, li_k = polish_kkt_kernel(
-        jnp.moveaxis(H, 0, -1),
-        jnp.moveaxis(J_m, 0, -1),
-        act.T.astype(dtype),
-        r1.T,
-        b.T,
-        nu0.T,
-    )
-    assert not np.asarray(fail_ref).any()
-    assert not (np.asarray(fail_k) > 0.5).any()
-    tol = 1e-5 if dtype == jnp.float32 else 1e-10
-    np.testing.assert_allclose(np.asarray(dx_t.T), np.asarray(x_ref),
-                               atol=tol, rtol=tol)
-    np.testing.assert_allclose(
-        np.asarray(jnp.where(act, nu_t.T, 0.0)),
-        np.asarray(jnp.where(act, nu_ref, 0.0)),
-        atol=10 * tol, rtol=tol,
-    )
-
-
-def test_polish_nlp_t_matches_polish_nlp():
-    """The transposed-layout polish epilogue (kernel tier) must agree with
-    the batch-first one (fused tier) on the same NLP batch: same accepted
-    points, same rescue flags."""
-    import dataclasses
-
-    from sqp_solver_tpu.models.benchmark import sphere_cap_nlp_batch
-    from sqp_solver_tpu.sqp import SQPSettings
-    from sqp_solver_tpu.sqp import common
-
-    dtype = jnp.float32
-    problem, x0 = sphere_cap_nlp_batch(16, 8, seed=3, dtype=dtype,
-                                       r_range=(0.5, 1.2))
-    B, n = x0.shape
-    params = problem.params
-    l, u = problem.l, problem.u
-    # a deliberately unconverged iterate: polish does real work
-    x = x0 + 0.3
-    lam = jnp.ones((B, l.shape[-1]), dtype)
-
-    def f_lin(xx):
-        f = lambda x_, p: problem.objective(x_, p)
-        return jax.vmap(jax.value_and_grad(f), in_axes=(0, 0))(xx, params)
-
-    def c_lin_t(xx):
-        return problem.constraint_linearized_t(xx, params)
-
-    def c_lin(xx):
-        cv, Jt = c_lin_t(xx)
-        return cv, jnp.moveaxis(Jt, -1, 0)
-
-    def hess_t(xx, ll):
-        return problem.lagrangian_hessian_t(xx, ll, params)
-
-    def hess(xx, ll):
-        return jnp.moveaxis(hess_t(xx, ll), -1, 0)
-
-    settings = SQPSettings(polish=True, polish_passes=3, eps_prim=1e-5,
-                           eps_dual=1e-5)
-    x_a, lam_a, resc_a = common.polish_nlp(x, lam, l, u, f_lin, c_lin, hess,
-                                           settings)
-    x_b, lam_b, resc_b = common.polish_nlp_t(x, lam, l, u, f_lin, c_lin_t,
-                                             hess_t, settings)
-    np.testing.assert_allclose(np.asarray(x_b), np.asarray(x_a), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(lam_b), np.asarray(lam_a), atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(resc_b), np.asarray(resc_a))
-
-
-def test_polish_kkt_kernel_edge_cases():
-    """All-inactive rows reduce to regularized-Newton on H (nu stays 0);
-    an indefinite H must raise the clamped-pivot fail flag, and the
-    epilogue's accept guard must then keep the unpolished point."""
-    from sqp_solver_tpu.ops.qp_kernel import polish_kkt_kernel
-
-    B, n, m = 4, 6, 7
-    key = jax.random.PRNGKey(7)
-    G = jax.random.normal(key, (B, n, n), jnp.float32)
-    H = jnp.einsum("bij,bkj->bik", G, G) + jnp.eye(n, dtype=jnp.float32)
-    r1 = jax.random.normal(key, (B, n), jnp.float32)
-
-    # all-inactive: Jm = 0, act = 0 -> x solves (H + delta I) x = r1 with
-    # ideal-operator refinement against H itself -> H x = r1 exactly
-    dx_t, nu_t, fail, _ = polish_kkt_kernel(
-        jnp.moveaxis(H, 0, -1),
-        jnp.zeros((m, n, B), jnp.float32),
-        jnp.zeros((m, B), jnp.float32),
-        r1.T,
-        jnp.zeros((m, B), jnp.float32),
-        jnp.zeros((m, B), jnp.float32),
-    )
-    assert not (np.asarray(fail) > 0.5).any()
-    np.testing.assert_allclose(np.asarray(nu_t), 0.0)
-    x = np.asarray(dx_t.T)
-    np.testing.assert_allclose(
-        np.einsum("bij,bj->bi", np.asarray(H), x), np.asarray(r1),
-        atol=1e-4, rtol=1e-4,
-    )
-
-    # indefinite H on problem 0 only: fail flags that lane, not the others
-    H_bad = H.at[0].set(-jnp.eye(n, dtype=jnp.float32))
-    _, _, fail2, _ = polish_kkt_kernel(
-        jnp.moveaxis(H_bad, 0, -1),
-        jnp.zeros((m, n, B), jnp.float32),
-        jnp.zeros((m, B), jnp.float32),
-        r1.T,
-        jnp.zeros((m, B), jnp.float32),
-        jnp.zeros((m, B), jnp.float32),
-    )
-    fail2 = np.asarray(fail2) > 0.5
-    assert fail2[0]
-    assert not fail2[1:].any()
-
-
-def test_polish_kkt_kernel_factor_reuse():
-    """Passing the previous call's (act, Li) skips the factorization on
-    tiles whose active set is unchanged — the solution must match the
-    fresh-factor path to sweep-converged accuracy; a changed active set
-    must refactor (bitwise-fresh result)."""
-    from sqp_solver_tpu.ops.qp_kernel import polish_kkt_kernel
-
-    B, n, m = 8, 6, 7
-    key = jax.random.PRNGKey(9)
-    k1, k2, k3, k4 = jax.random.split(key, 4)
-    G = jax.random.normal(k1, (B, n, n), jnp.float32)
-    H = jnp.einsum("bij,bkj->bik", G, G) + jnp.eye(n, dtype=jnp.float32)
-    J = jax.random.normal(k2, (B, m, n), jnp.float32)
-    act = (jax.random.uniform(k3, (B, m)) < 0.5).astype(jnp.float32)
-    Jm = jnp.moveaxis(jnp.where(act[..., None] > 0, J, 0.0), 0, -1)
-    Ht = jnp.moveaxis(H, 0, -1)
-    act_t = act.T
-    r1 = jax.random.normal(k4, (B, n), jnp.float32).T
-    b = (jax.random.normal(k4, (B, m), jnp.float32) * act).T
-    nu0 = jnp.zeros((m, B), jnp.float32)
-
-    dx1, nu1, f1, li1 = polish_kkt_kernel(Ht, Jm, act_t, r1, b, nu0)
-    # unchanged operator: the reused Li IS the fresh Li, results equal
-    same = polish_kkt_kernel(
-        Ht, Jm, act_t, r1, b, nu0, actt_prev=act_t, li_prev=li1
-    )
-    np.testing.assert_allclose(
-        np.asarray(same[0]), np.asarray(dx1), atol=1e-6, rtol=1e-6
-    )
-    # slightly perturbed H (a Newton re-linearization): the stale Li
-    # still preconditions the sweeps toward the same fixed point; the
-    # residual error is bounded by the slowed contraction (and upstream,
-    # polish_nlp_t's accept guard + big-step refactor bound the drift)
-    Ht2 = Ht * 1.001
-    fresh = polish_kkt_kernel(Ht2, Jm, act_t, r1, b, nu0)
-    reused = polish_kkt_kernel(
-        Ht2, Jm, act_t, r1, b, nu0, actt_prev=act_t, li_prev=li1
-    )
-    np.testing.assert_allclose(
-        np.asarray(reused[0]), np.asarray(fresh[0]), atol=5e-4, rtol=5e-4
-    )
-    # changed active set: must refactor -> bitwise-equal to fresh
-    act_b = act.at[:, 0].set(1.0 - act[:, 0])
-    Jm_b = jnp.moveaxis(jnp.where(act_b[..., None] > 0, J, 0.0), 0, -1)
-    b_b = (jax.random.normal(k4, (B, m), jnp.float32) * act_b).T
-    fresh_b = polish_kkt_kernel(Ht2, Jm_b, act_b.T, r1, b_b, nu0)
-    reused_b = polish_kkt_kernel(
-        Ht2, Jm_b, act_b.T, r1, b_b, nu0, actt_prev=act_t, li_prev=li1
-    )
-    np.testing.assert_array_equal(
-        np.asarray(reused_b[0]), np.asarray(fresh_b[0])
-    )
-
-    # a reused clamped-pivot factor must STAY flagged (fail_prev carries
-    # through the skip branch) — reporting 0 would let accept guards
-    # trust a solve preconditioned by junk
-    fail1_bad = jnp.ones_like(f1)
-    reused_f = polish_kkt_kernel(
-        Ht, Jm, act_t, r1, b, nu0, actt_prev=act_t, li_prev=li1,
-        fail_prev=fail1_bad,
-    )
-    assert (np.asarray(reused_f[2]) > 0.5).all()
-
-    # actt_prev without li_prev is a usage error, not a confusing crash
-    with pytest.raises(ValueError, match="li_prev"):
-        polish_kkt_kernel(Ht, Jm, act_t, r1, b, nu0, actt_prev=act_t)
-
-
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
-def test_kkt_solve_kernel_route_matches_xla(dtype):
-    """kkt_solve_schur_refined(use_kernel=True) — the whole-pass Pallas
-    route used for large TPU batches, including the x0/nu0 warm start —
-    must agree with the XLA route."""
-    from sqp_solver_tpu.qp.polish import kkt_solve_schur_refined
-
-    B, n, m = 10, 9, 12
-    key = jax.random.PRNGKey(13)
-    k1, k2, k3, k4, k5, k6 = jax.random.split(key, 6)
-    G = jax.random.normal(k1, (B, n, n), dtype)
-    H = jnp.einsum("bij,bkj->bik", G, G) + 0.5 * jnp.eye(n, dtype=dtype)
-    J = jax.random.normal(k2, (B, m, n), dtype)
-    act = jax.random.uniform(k3, (B, m)) < 0.4
-    J_m = jnp.where(act[..., None], J, 0.0)
-    r1 = jax.random.normal(k4, (B, n), dtype)
-    r2 = jnp.where(act, jax.random.normal(k5, (B, m), dtype), 0.0)
-    x0 = 0.1 * jax.random.normal(k6, (B, n), dtype)
-    nu0 = 0.1 * jax.random.normal(k6, (B, m), dtype)
-
-    ref = kkt_solve_schur_refined(H, J_m, act, r1, r2, x0=x0, nu0=nu0,
-                                  use_kernel=False)
-    ker = kkt_solve_schur_refined(H, J_m, act, r1, r2, x0=x0, nu0=nu0,
-                                  use_kernel=True)
-    tol = 2e-5 if dtype == jnp.float32 else 1e-10
-    np.testing.assert_allclose(np.asarray(ker[0]), np.asarray(ref[0]),
-                               atol=tol, rtol=tol)
-    np.testing.assert_allclose(np.asarray(ker[1]), np.asarray(ref[1]),
-                               atol=10 * tol, rtol=tol)
-    assert not np.asarray(ker[2]).any()
-
-
 def test_polish_hyperparams_thread_through_settings():
     """QPSettings.polish_delta / polish_sweeps reach the polish solve: one
     sweep leaves a visibly larger delta-bias than the default six, and
@@ -369,15 +131,13 @@ def test_polish_pass2_repairs_degenerate_active_set():
     dropped by the pass-1 guess; the polished x then crosses its bound by
     a CURVATURE-AMPLIFIED visible amount, and the second polish pass
     promotes it back (qp.polish.reclassify_active_set).  This is the
-    OSQP-paper portfolio family's accuracy outlier reduced to its core
-    (round-4 verdict ask #5; measured decomposition in
-    scripts/portfolio_fix_probe2.py).
+    OSQP-paper portfolio family's accuracy outlier reduced to its core.
 
     Construction: x0 has tiny curvature p0 and a lower bound at 0 whose
     true multiplier 2e-5 sits BELOW ytol = 1e-5*(1+|y|_inf) once x1's
     bound carries a large multiplier (5.0).  The unconverged iterate fed
     to polish has a zeroed dual on row 0 (what ADMM's degenerate lanes
-    look like, scripts/portfolio_fix_probe2.py) -- so pass 1 drops the
+    look like) -- so pass 1 drops the
     row and lands at -q0/p0 = -1e-3, which the guard rejects; pass 2
     sees the violation, promotes the row, and solves exactly.
     """
@@ -418,48 +178,3 @@ def test_polish_pass2_repairs_degenerate_active_set():
     # and the repaired dual is the true weakly-active multiplier
     y2 = np.asarray(pol2.y)
     np.testing.assert_allclose(y2[:, 0], -2e-5, atol=1e-9)
-
-
-def test_polish_nlp_t_delegates_above_kernel_envelope():
-    """Above n=128 the whole-pass polish kernel cannot compile (Mosaic
-    register spills exceed the 127 MB VMEM cap at n=192 — measured r5),
-    so polish_nlp_t must route to the batch-first epilogue.  The two are
-    the same algorithm; at n>128 the results must agree exactly."""
-    from sqp_solver_tpu.models.benchmark import sphere_cap_nlp_batch
-    from sqp_solver_tpu.sqp import SQPSettings
-    from sqp_solver_tpu.sqp import common
-
-    dtype = jnp.float64
-    problem, x0 = sphere_cap_nlp_batch(4, 136, seed=5, dtype=dtype,
-                                       r_range=(0.5, 1.2))
-    params = problem.params
-    l, u = problem.l, problem.u
-    x = x0 + 0.2
-    lam = jnp.ones((4, l.shape[-1]), dtype)
-
-    def f_lin(xx):
-        f = lambda x_, p: problem.objective(x_, p)
-        return jax.vmap(jax.value_and_grad(f), in_axes=(0, 0))(xx, params)
-
-    def c_lin_t(xx):
-        return problem.constraint_linearized_t(xx, params)
-
-    def c_lin(xx):
-        cv, Jt = c_lin_t(xx)
-        return cv, jnp.moveaxis(Jt, -1, 0)
-
-    def hess_t(xx, ll):
-        return problem.lagrangian_hessian_t(xx, ll, params)
-
-    def hess(xx, ll):
-        return jnp.moveaxis(hess_t(xx, ll), -1, 0)
-
-    settings = SQPSettings(polish=True, polish_passes=2, eps_prim=1e-6,
-                           eps_dual=1e-6)
-    x_a, lam_a, resc_a = common.polish_nlp(x, lam, l, u, f_lin, c_lin, hess,
-                                           settings)
-    x_b, lam_b, resc_b = common.polish_nlp_t(x, lam, l, u, f_lin, c_lin_t,
-                                             hess_t, settings)
-    np.testing.assert_array_equal(np.asarray(x_a), np.asarray(x_b))
-    np.testing.assert_array_equal(np.asarray(lam_a), np.asarray(lam_b))
-    np.testing.assert_array_equal(np.asarray(resc_a), np.asarray(resc_b))

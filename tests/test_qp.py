@@ -168,7 +168,7 @@ class TestStatefulWrapper:
 
 class TestBatched:
     """vmap over a batch of QPs — per-problem termination via batched
-    while_loop (no reference analog; this is the TPU batching story)."""
+    while_loop (no reference analog; this is the batching story)."""
 
     def test_vmap_batch(self):
         qp = simple_qp()
@@ -290,7 +290,7 @@ class TestLinearSolverHardening:
 
 
 class TestBlockedCholesky:
-    """Large-n blocked MXU Cholesky backend (SURVEY C6 north-star kernel)."""
+    """Large-n blocked Cholesky backend (SURVEY C6 north-star kernel)."""
 
     def test_blocked_factor_matches_default(self):
         from sqp_solver_tpu.models.mpc import random_qp_batch

@@ -66,11 +66,11 @@ class TestShardedSQP:
         assert np.all(np.asarray(out.info.status) == SQPStatus.SOLVED)
 
 
-class TestShardedKernelPath:
-    """The production tier (fused SQP-step kernel) under shard_map: every
-    device runs the whole kernel pipeline on its local batch shard."""
+class TestShardedFusedPath:
+    """The production tier (fused) under shard_map: every device runs the
+    whole fused pipeline on its local batch shard."""
 
-    def test_sqp_kernel_impl_sharded(self, mesh):
+    def test_sqp_fused_impl_sharded(self, mesh):
         from sqp_solver_tpu.models.benchmark import (
             sphere_cap_nlp_batch,
             sphere_cap_solution,
@@ -80,7 +80,7 @@ class TestShardedKernelPath:
         problem, x0 = sphere_cap_nlp_batch(B, N, dtype=jnp.float32)
         s = SQPSettings(
             max_iter=15, termination="kkt", eps_prim=1e-3, eps_dual=1e-3,
-            schedule="fixed", qp_impl="kernel", polish=True,
+            schedule="fixed", polish=True,
             qp=QPSettings(
                 alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=200,
                 check_termination=25, adaptive_rho=True,
@@ -98,7 +98,7 @@ class TestShardedKernelPath:
         assert ok.mean() > 0.9
         assert np.abs(np.asarray(res.x) - x_star)[ok].max() < 1e-4
 
-    def test_qp_kernel_impl_sharded(self, mesh):
+    def test_qp_fused_impl_sharded(self, mesh):
         qp = random_qp_batch(batch=32, n=6, m=9, seed=4, dtype=jnp.float32)
         s = QPSettings(
             alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=200,
@@ -106,7 +106,7 @@ class TestShardedKernelPath:
             adaptive_rho_interval=50, schedule="fixed",
         )
         ref = qp_solve_batch(qp, s)
-        res = sharded_qp_solve_batch(shard_batch(qp, mesh), s, mesh, impl="kernel")
+        res = sharded_qp_solve_batch(shard_batch(qp, mesh), s, mesh, impl="fused")
         assert len(res.x.sharding.device_set) == 8
         ok = (np.asarray(ref.info.status) == 0) & (np.asarray(res.info.status) == 0)
         np.testing.assert_allclose(
@@ -134,7 +134,7 @@ class TestShardedTrace:
         problem, x0 = sphere_cap_nlp_batch(B, N, dtype=jnp.float32)
         settings = SQPSettings(
             max_iter=T, termination="kkt", eps_prim=1e-3, eps_dual=1e-3,
-            schedule="fixed", qp_impl="kernel", record_trace=True,
+            schedule="fixed", record_trace=True,
         )
         res = sharded_sqp_solve_batch(
             shard_batch(problem, mesh), shard_batch(x0, mesh), None,

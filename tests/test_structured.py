@@ -172,8 +172,8 @@ class TestArrow:
     def test_f32_large_blocks_converge(self):
         """f32 robustness at b=32 blocks: the composed bordered inverse
         without Newton-Schulz correction (per block + border + once
-        against full M) stalled ADMM outright on TPU (solved 0.58 at
-        n=770, measured round 3 — see _arrow_factor_factory docstring).
+        against full M) stalled ADMM outright (solved 0.58 at n=770 —
+        see _arrow_factor_factory docstring).
         Pin that the corrected factorization matches the dense backend's
         convergence in f32."""
         from sqp_solver_tpu.models.mpc import mpc_qp_coupled_batch
